@@ -13,12 +13,11 @@ import sys
 import time
 
 os.environ.setdefault("SPHERICALSFM_TPU_X64", "0")
-sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from bench_ba_scale import make_ring_scene
+from sphericalsfm_tpu.eval.synthetic import make_ring_scene  # noqa: E402
 from sphericalsfm_tpu.optim.ba import bundle_adjust
 
 

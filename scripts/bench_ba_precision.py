@@ -1,11 +1,10 @@
-"""Measure BA matmul-precision modes on TPU: 6-pass HIGHEST vs 3-pass HIGH.
+"""Measure BA matmul-precision modes: HIGHEST vs HIGH (and DEFAULT).
 
-The round-2 numerics rework traces the whole LM loop under
-`default_matmul_precision("highest")` (6 bf16 passes per f32 matmul on the
-MXU) because the DEFAULT bf16 rounding stalls LM 2.5× above the optimum near
-convergence (docs/NUMERICS.md). HIGH (3 passes) carries ~21-24 mantissa bits
-— possibly enough for the Hessian contractions — at half the MXU cost. This
-script answers that empirically: per-LM-iteration wall time and reached cost
+The LM loop traces under `default_matmul_precision("highest")` because
+reduced-precision matmul inputs stall LM above the optimum near
+convergence (docs/NUMERICS.md). A cheaper mode (TF32 on the GPU) may be
+enough for the Hessian contractions. This script answers that
+empirically: per-LM-iteration wall time and reached cost
 for each mode on ring scenes at the dense_pairs and PCG scales.
 
 Usage: python scripts/bench_ba_precision.py [C W P]
@@ -18,12 +17,11 @@ import time
 
 os.environ.setdefault("SPHERICALSFM_TPU_X64", "0")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-sys.path.insert(0, os.path.dirname(__file__))
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
 
-from bench_ba_scale import make_ring_scene  # noqa: E402
+from sphericalsfm_tpu.eval.synthetic import make_ring_scene  # noqa: E402
 from sphericalsfm_tpu.optim.ba import bundle_adjust  # noqa: E402
 
 

@@ -1,4 +1,4 @@
-"""Adaptive-RANSAC accuracy/speed sweep vs the static engine (TPU).
+"""Adaptive-RANSAC accuracy/speed sweep vs the static engine.
 
 VERDICT r2 item 4: the adaptive early exit traded 22% median rotation
 accuracy (0.056 -> 0.0685 deg) for speed. This sweeps min_rounds / lo_rounds

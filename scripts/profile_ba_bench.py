@@ -1,9 +1,6 @@
-"""Profile the bench.py BA workload per camera-solver and precision.
-
-The r02 bench regression (54 -> 24.5 LM iters/s @ ~41k obs / 64 cams) is NOT
-explained by matmul precision alone (ring scene: highest 43.7 vs default
-50.6 iters/s). This script times the EXACT bench.py scene under each solver
-x precision combination, plus the pair-table size, to locate the real cost.
+"""Time the 64-camera BA scene (`eval.synthetic.make_bench_scene`, the
+scene bench.py uses) under each camera solver x matmul precision, plus the
+size of its observation-pair table.
 
 Usage: python scripts/profile_ba_bench.py [solver ...]
 """
@@ -18,56 +15,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np  # noqa: E402
 
 import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 
+from sphericalsfm_tpu.eval.synthetic import make_bench_scene  # noqa: E402
 from sphericalsfm_tpu.optim.ba import (  # noqa: E402
-    BAProblem, bundle_adjust, build_tracks, count_cc_pairs,
-    sort_obs_by_camera,
+    bundle_adjust, count_cc_pairs, sort_obs_by_camera,
 )
-from sphericalsfm_tpu.geometry.so3 import so3_exp as _exp  # noqa: E402
-
-FOCAL = 600.0
-
-
-def make_bench_scene():
-    """Identical to bench.py::bench_ba's scene."""
-    rng = np.random.default_rng(0)
-    C, P = 64, 8000
-    phi = np.arange(C) * 2 * np.pi / C
-    cam_r = np.stack([np.zeros(C), phi, np.zeros(C)], -1).astype(np.float32)
-    cam_t = np.tile([0, 0, -1.0], (C, 1)).astype(np.float32)
-    R = np.asarray(_exp(jnp.asarray(cam_r)))
-    dirs = rng.normal(size=(P, 3))
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    pts = (dirs * rng.uniform(5, 9, (P, 1))).astype(np.float32)
-    px = np.einsum("cij,pj->pci", R, pts) + cam_t[None]
-    vis = (px[..., 2] > 1.0) & (np.abs(px[..., 0] / px[..., 2]) < 0.8) & (
-        np.abs(px[..., 1] / px[..., 2]) < 0.6
-    )
-    obs_pt, obs_cam = np.nonzero(vis)
-    obs_pt = obs_pt.astype(np.int32)
-    obs_cam = obs_cam.astype(np.int32)
-    obs_uv = (
-        FOCAL * px[obs_pt, obs_cam, :2] / px[obs_pt, obs_cam, 2:]
-        + rng.normal(size=(len(obs_pt), 2)) * 0.5
-    ).astype(np.float32)
-    cnt = np.bincount(obs_pt, minlength=P)
-    w = (cnt[obs_pt] >= 3).astype(np.float32)
-    track_obs, track_mask = build_tracks(obs_pt, P, max_track=16)
-    track_mask = track_mask & (w[track_obs] > 0)
-    prob = BAProblem(
-        jnp.float32(FOCAL), jnp.asarray(cam_t),
-        jnp.asarray(cam_r + rng.normal(size=cam_r.shape).astype(np.float32) * 0.003),
-        jnp.asarray(pts + rng.normal(size=pts.shape).astype(np.float32) * 0.05),
-        jnp.asarray(obs_cam), jnp.asarray(obs_pt), jnp.asarray(obs_uv),
-        jnp.asarray(w), jnp.asarray(track_obs), jnp.asarray(track_mask),
-        jnp.asarray(True), jnp.asarray(np.eye(1, C, 0, dtype=bool)[0]),
-        jnp.ones(C, bool), jnp.zeros(P, bool),
-    )
-    tr_lens = cnt[cnt > 0]
-    print(f"scene: K={len(obs_pt)} C={C} P={P} "
-          f"track mean={tr_lens.mean():.1f} max={tr_lens.max()}")
-    return prob
 
 
 def run(prob, solver, prec, iters=20):

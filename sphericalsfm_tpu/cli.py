@@ -24,7 +24,7 @@ def _add_common(p):
     p.add_argument("--minrot", type=float, default=1.0)
     p.add_argument("--stride", type=int, default=1, help="frame stride")
     p.add_argument("--maxkeypoints", type=int, default=4000)
-    p.add_argument("--detector", default="tpu", choices=["tpu", "opencv"])
+    p.add_argument("--detector", default="device", choices=["device", "opencv"])
     p.add_argument("--devices", type=int, default=0,
                    help="shard the pipeline over a mesh of this many devices "
                         "(power of two; 0/1 = single-device)")

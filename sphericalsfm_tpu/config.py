@@ -22,7 +22,7 @@ class FrontendConfig:
     num_octaves: int = 4
     match_ratio: float = 0.75          # Lowe ratio
     max_matches_per_pair: int = 1024
-    detector: str = "tpu"              # "tpu" (DoG/SIFT kernel) or "opencv"
+    detector: str = "device"           # "device" (DoG/SIFT kernel) or "opencv"
     frame_stride: int = 1
     matching: str = "exhaustive"       # "exhaustive" O(F²) | "windows" O(F):
     adjacent_window: int = 3           # adjacent band width in windows mode
@@ -76,15 +76,16 @@ class FocalSearchConfig:
 class BAConfig:
     max_iters: int = 200
     loss_scale: float = 1.0            # Cauchy
-    solve_dtype: str = "float64"       # "float32" on TPU
+    solve_dtype: str = "float64"       # "float32" in the accelerator regime
     # Reprojection-error observation filter applied between the general-BA
     # rounds when > 0. Off by default for reference parity: the reference
     # defines SfM::FilterObservations (sfm.cpp:297) but no driver calls it.
     filter_threshold_px: float = 0.0
-    # Inexact-Newton forcing for the PCG camera solve (>512 cameras; below
-    # that the dense Schur Cholesky is faster — scripts/bench_ba_forcing.py):
-    # LM steps don't need a tight inner solve, and the 25-iteration cap
-    # bounds per-step latency at the same reached cost as looser caps.
+    # Inexact-Newton forcing for the PCG camera solve (>512 cameras): LM
+    # steps don't need a tight inner solve, and the 25-iteration cap bounds
+    # per-step latency at the same reached cost as looser caps. Chosen on
+    # another chip with scripts/bench_ba_forcing.py; waits for
+    # re-derivation on the H100 (ROADMAP 3.3).
     pcg_rtol: float = 1e-2
     pcg_iters: int = 25
 

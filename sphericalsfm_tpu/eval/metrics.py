@@ -28,7 +28,7 @@ def frobenius_error(E_est: jnp.ndarray, E_gt: jnp.ndarray) -> jnp.ndarray:
 
 def rotation_error_deg(R_est: jnp.ndarray, R_gt: jnp.ndarray) -> jnp.ndarray:
     """Geodesic rotation error in degrees (elementwise trace form — the
-    matmul form hit the TPU MXU's bf16 default precision, a degree-level
+    matmul form is exposed to reduced-precision default matmuls, a degree-level
     error on small angles; see so3.rotation_geodesic)."""
     from ..geometry.so3 import rotation_geodesic
 

@@ -40,11 +40,12 @@ def _render_frames(
 ):
     """Scan over frames; block rows so the (B*W, n_waves) intermediate is
     bounded (a full VGA frame would materialize ~740 MB per frame)."""
-    # HIGHEST matmul precision throughout: at the MXU default (f32 inputs
-    # rounded to bf16) the ray-direction and wave-phase products render a
+    # HIGHEST matmul precision throughout: with reduced-precision matmul
+    # inputs (bf16 at the first chip's default) the ray-direction and
+    # wave-phase products render a
     # smoothly WARPED scene — pixel-scale, geometry-coherent texture
     # displacement that the pipeline then faithfully reconstructs. Found in
-    # round 5: general BA on TPU-rendered sequences converged to ATE 0.26
+    # round 5: general BA on bf16-rendered sequences converged to ATE 0.26
     # "distortions" that fit the rendered observations 2.7x better than the
     # analytic ground truth did (f800_140: GT-pose optimal-point median
     # residual 0.55 px vs the fitted model's 0.205 px).

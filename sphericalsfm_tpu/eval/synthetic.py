@@ -19,6 +19,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
+
 import jax
 import jax.numpy as jnp
 
@@ -150,3 +152,118 @@ def corrupt_match_table(idx1, mmask, pair_j, counts, fraction: float,
         kj = int(counts[pair_j[p]])
         idx1[p, sel] = rng.integers(0, max(kj, 1), size=k)
     return idx1
+
+
+def make_ring_scene(C=2000, W=520, P=131072, noise=0.5, seed=0,
+                    dtype=np.float32):
+    """Large BA scene: C cameras on the unit circle (every frame a keyframe,
+    reference sfm.cpp:200-212 SPARSE_SCHUR scale), P points in an annulus
+    around it, each camera observing a contiguous window of W points. The
+    observation table is built camera-major, so it is already
+    camera-sorted for `cam_ptr`. Host numpy throughout."""
+    from ..geometry.so3 import np_so3_exp
+    from ..optim.ba import BAProblem, build_tracks
+
+    rng = np.random.default_rng(seed)
+    focal = 600.0
+    phi = np.arange(C) * 2 * np.pi / C
+    cam_r = np.stack([np.zeros(C), phi, np.zeros(C)], -1).astype(dtype)
+    cam_t = np.tile([0, 0, -1.0], (C, 1)).astype(dtype)
+
+    # point j at azimuth −2πj/P (so camera i≈jC/P sees it head-on)
+    theta = -np.arange(P) * 2 * np.pi / P
+    rad = rng.uniform(5.0, 9.0, P)
+    y = rng.uniform(-1.5, 1.5, P)
+    pts = np.stack(
+        [rad * np.sin(theta), y, rad * np.cos(theta)], -1
+    ).astype(dtype)
+
+    # camera i observes the W points centred on index i·P/C
+    centers = (np.arange(C) * (P / C)).astype(np.int64)
+    win = np.arange(W) - W // 2
+    obs_pt = ((centers[:, None] + win[None, :]) % P).reshape(-1).astype(np.int32)
+    obs_cam = np.repeat(np.arange(C, dtype=np.int32), W)
+
+    R = np_so3_exp(cam_r.astype(np.float64))
+    px = (
+        np.einsum("kij,kj->ki", R[obs_cam], pts[obs_pt].astype(np.float64))
+        + cam_t[obs_cam]
+    )
+    good = px[:, 2] > 0.5
+    uv = focal * px[:, :2] / np.where(good, px[:, 2], 1.0)[:, None]
+    uv = uv + rng.normal(size=uv.shape) * noise
+    w = good.astype(dtype)
+    cnt = np.bincount(obs_pt, weights=w, minlength=P)
+    w = w * (cnt[obs_pt] >= 3)
+
+    track_obs, track_mask = build_tracks(obs_pt, P)
+    track_mask = track_mask & (w[track_obs] > 0)
+    cam_ptr = np.arange(C + 1, dtype=np.int32) * W
+
+    rot_fixed = np.zeros(C, bool)
+    rot_fixed[0] = True
+    cam_r_pert = cam_r + rng.normal(size=cam_r.shape).astype(dtype) * 0.002
+    cam_r_pert[0] = cam_r[0]
+    pts_pert = pts + rng.normal(size=pts.shape).astype(dtype) * 0.03
+
+    return BAProblem(
+        focal=jnp.asarray(focal, dtype),
+        cam_t=jnp.asarray(cam_t),
+        cam_r=jnp.asarray(cam_r_pert),
+        points=jnp.asarray(pts_pert),
+        obs_cam=jnp.asarray(obs_cam),
+        obs_pt=jnp.asarray(obs_pt),
+        obs_uv=jnp.asarray(uv.astype(dtype)),
+        obs_w=jnp.asarray(w),
+        track_obs=jnp.asarray(track_obs),
+        track_mask=jnp.asarray(track_mask),
+        focal_fixed=jnp.asarray(True),
+        rot_fixed=jnp.asarray(rot_fixed),
+        trans_fixed=jnp.ones(C, bool),
+        point_fixed=jnp.zeros(P, bool),
+        cam_ptr=jnp.asarray(cam_ptr),
+    )
+
+
+def make_bench_scene():
+    """The 64-camera BA scene (8000 points, ~41k observations): cameras on
+    the unit circle, points in a shell around it, observed where they fall
+    inside a ±0.8 × ±0.6 normalized field of view."""
+    from ..geometry.so3 import np_so3_exp
+    from ..optim.ba import BAProblem, build_tracks
+
+    focal = 600.0
+    rng = np.random.default_rng(0)
+    C, P = 64, 8000
+    phi = np.arange(C) * 2 * np.pi / C
+    cam_r = np.stack([np.zeros(C), phi, np.zeros(C)], -1).astype(np.float32)
+    cam_t = np.tile([0, 0, -1.0], (C, 1)).astype(np.float32)
+    R = np_so3_exp(cam_r.astype(np.float64)).astype(np.float32)
+    dirs = rng.normal(size=(P, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    pts = (dirs * rng.uniform(5, 9, (P, 1))).astype(np.float32)
+    px = np.einsum("cij,pj->pci", R, pts) + cam_t[None]
+    vis = (px[..., 2] > 1.0) & (np.abs(px[..., 0] / px[..., 2]) < 0.8) & (
+        np.abs(px[..., 1] / px[..., 2]) < 0.6
+    )
+    obs_pt, obs_cam = np.nonzero(vis)
+    obs_pt = obs_pt.astype(np.int32)
+    obs_cam = obs_cam.astype(np.int32)
+    obs_uv = (
+        focal * px[obs_pt, obs_cam, :2] / px[obs_pt, obs_cam, 2:]
+        + rng.normal(size=(len(obs_pt), 2)) * 0.5
+    ).astype(np.float32)
+    cnt = np.bincount(obs_pt, minlength=P)
+    w = (cnt[obs_pt] >= 3).astype(np.float32)
+    track_obs, track_mask = build_tracks(obs_pt, P, max_track=16)
+    track_mask = track_mask & (w[track_obs] > 0)
+    return BAProblem(
+        jnp.float32(focal), jnp.asarray(cam_t),
+        jnp.asarray(cam_r + rng.normal(size=cam_r.shape).astype(np.float32)
+                    * 0.003),
+        jnp.asarray(pts + rng.normal(size=pts.shape).astype(np.float32) * 0.05),
+        jnp.asarray(obs_cam), jnp.asarray(obs_pt), jnp.asarray(obs_uv),
+        jnp.asarray(w), jnp.asarray(track_obs), jnp.asarray(track_mask),
+        jnp.asarray(True), jnp.asarray(np.eye(1, C, 0, dtype=bool)[0]),
+        jnp.ones(C, bool), jnp.zeros(P, bool),
+    )

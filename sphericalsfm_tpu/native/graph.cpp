@@ -1,6 +1,6 @@
 // Native host-side graph kernels for sphericalsfm_tpu.
 //
-// The TPU-native framework keeps its compute path in XLA; the runtime
+// The framework keeps its compute path in XLA; the runtime
 // bookkeeping around it (track building, view-graph components) is
 // pointer-chasing work the reference does with std::map/Boost.Graph
 // (examples/spherical_sfm_tools.cpp:736-792, 886-950). Here it is a small

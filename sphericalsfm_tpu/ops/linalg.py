@@ -1,4 +1,4 @@
-"""Batched small-matrix linear algebra tuned for TPU.
+"""Batched small-matrix linear algebra in closed forms.
 
 XLA lowers jnp.linalg.{eigh, svd} through QDWH-style iterations that are
 wildly oversized for the 3×3/6×6 matrices at the heart of the minimal
@@ -73,9 +73,10 @@ def nullspace_exact(A: jnp.ndarray, k: int) -> jnp.ndarray:
 def inv3x3(M: jnp.ndarray) -> jnp.ndarray:
     """Closed-form adjugate inverse of a batched (..., 3, 3).
 
-    TPU-friendly replacement for `jnp.linalg.inv` on small batched blocks:
-    the general path lowers to batched LU, which is slow to compile and run
-    on TPU; the adjugate is pure elementwise arithmetic. Caller guarantees
+    Replacement for `jnp.linalg.inv` on small batched blocks: the general
+    path lowers to batched LU, which was slow to compile and run on the
+    chip this was first built for; the adjugate is pure elementwise
+    arithmetic. Caller guarantees
     invertibility (BA uses it on damped SPD point blocks).
     """
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
@@ -246,16 +247,16 @@ def _balance(M: jnp.ndarray, sweeps: int = 4) -> tuple:
 
 def eig_real_batched(M: jnp.ndarray, aberth_iters: int = 60,
                      inv_iters: int = 4):
-    """Real eigenpairs of small nonsymmetric matrices, TPU-capable.
+    """Real eigenpairs of small nonsymmetric matrices, on any backend.
 
-    jnp.linalg.eig is CPU-only; this replacement runs everywhere. The
+    jnp.linalg.eig is not lowered on every backend; this replacement runs
+    everywhere. The
     eigenvalues are the roots of p(z) = det(M − zI); all n of them (complex
     included) are found simultaneously by Aberth–Ehrlich iteration — the
     globally-convergent simultaneous root finder with built-in pairwise
     repulsion — using the numerically stable trace form
     p/p' = −1/tr((M − zI)⁻¹). The complex linear solve is a real 2n×2n
-    embedding [[Aᵣ, −Aᵢ],[Aᵢ, Aᵣ]] through QR (no LU, no complex linalg —
-    both TPU constraints). Real roots then get null vectors from QR-clamped
+    embedding [[Aᵣ, −Aᵢ],[Aᵢ, Aᵣ]] through QR (no LU, no complex linalg). Real roots then get null vectors from QR-clamped
     inverse iteration plus a bordered-system eigenpair Newton polish.
 
     M (..., n, n) → (lam (..., n), V (..., n, n) column eigenvectors,
@@ -275,10 +276,10 @@ def eig_real_batched(M: jnp.ndarray, aberth_iters: int = 60,
     Mn = flatM / R_bound[:, None, None]
 
     # Characteristic polynomial by Faddeev–LeVerrier — n batched n×n
-    # matmuls (MXU work at HIGHEST precision), computed ONCE. The previous
+    # matmuls (at HIGHEST precision), computed ONCE. The previous
     # trace form p/p' = −1/tr((Mn − zI)⁻¹) solved a 2n×2n real-embedded
     # system per root per Aberth iteration (60·n tiny QRs per problem — the
-    # entire 5-pt/6-pt TPU throughput floor, VERDICT r4 weak #6); Horner on
+    # entire 5-pt/6-pt throughput floor); Horner on
     # the coefficients is elementwise (re,im)-plane arithmetic instead.
     # Coefficient-basis roots are worse-conditioned than matrix eigenvalues
     # (Wilkinson), but Aberth only needs to land each root inside the basin
@@ -451,7 +452,7 @@ def sigma_min_small(C: jnp.ndarray, iters: int = 5) -> jnp.ndarray:
 
     Inverse iteration on G = CᵀC through the trace-unrolled Cholesky
     (`chol_small`/`tri_inv_lower_small`) + a final Rayleigh quotient —
-    a TPU-native replacement for `jnp.linalg.svd(..., compute_uv=False)`,
+    a replacement for `jnp.linalg.svd(..., compute_uv=False)`,
     whose QDWH lowering is wildly oversized for 10×10 discriminator
     evaluations (the 6-pt solver calls σ_min ~90 times per solve; VERDICT
     r4 weak #6). Forming CᵀC halves the attainable precision to ~√eps·‖C‖,
@@ -486,8 +487,8 @@ def chol_small(A: jnp.ndarray, floor: float = 1e-30) -> jnp.ndarray:
 
     Generalizes `chol3x3` to any compile-time block size: the b(b+1)/2
     scalar recurrences unroll at trace time into fused elementwise ops, so
-    there is NO sequential while_loop on device (XLA's `cholesky` lowers to
-    an O(b)-deep loop nest on TPU). Pivots are clamped to `floor` before
+    there is NO sequential while_loop on device (XLA's `cholesky` lowered
+    to an O(b)-deep loop nest on the chip this was first built for). Pivots are clamped to `floor` before
     sqrt/divide — branchless and NaN-free on all-zero blocks.
     """
     b = A.shape[-1]
@@ -516,8 +517,8 @@ def tri_inv_lower_small(L: jnp.ndarray) -> jnp.ndarray:
     """Trace-unrolled inverse of a small (..., b, b) lower-triangular block.
 
     Forward substitution against the identity, fully unrolled — the
-    companion to `chol_small` (XLA's `triangular_solve` is an O(b)-deep
-    sequential loop on TPU). Caller guarantees nonzero diagonal (chol_small
+    companion to `chol_small` (XLA's `triangular_solve` was an O(b)-deep
+    sequential loop on the chip this was first built for). Caller guarantees nonzero diagonal (chol_small
     floors its pivots).
     """
     b = L.shape[-1]
@@ -543,19 +544,20 @@ def block_chol_solve(S: jnp.ndarray, rhs: jnp.ndarray,
                      block: int = 8) -> jnp.ndarray:
     """Dense SPD solve S x = rhs via a block-column Cholesky scan.
 
-    Currently bench/test-only: the production dense Schur step measured 2×
-    FASTER with XLA's cholesky+triangular solves in context (optim/ba.py
-    dense path), so no pipeline code calls this. Kept as the measured
-    alternative and for `scripts/profile_dense_solve.py` comparisons.
+    Currently bench/test-only: the production dense Schur step was faster
+    with XLA's cholesky+triangular solves in context on the chip this was
+    first built for (optim/ba.py dense path), so no pipeline code calls
+    this. Kept as the measured
+    alternative; both sides wait for re-measurement on the GPU (ROADMAP
+    3.3).
 
-    TPU replacement for `jnp.linalg.cholesky` + two `solve_triangular`
-    calls: XLA lowers those to while-loops whose sequential depth is O(D)
-    tiny steps (measured ~4-5 ms at D=385 on v5e — the dominant cost of the
-    BA dense camera solve). Here the factorization runs as a lax.scan over
+    Replacement for `jnp.linalg.cholesky` + two `solve_triangular` calls,
+    which XLA lowered to while-loops whose sequential depth is O(D) tiny
+    steps on the chip this was first built for. Here the factorization runs as a lax.scan over
     D/b block columns with closed-form (trace-unrolled) b×b factor and
     triangular inverse per step, and the FORWARD substitution is fused into
     the same scan (classic outer-product elimination carries the rhs), so
-    the total sequential depth is 2·D/b steps of MXU/VPU work.
+    the total sequential depth is 2·D/b steps.
 
     The input is padded to a multiple of `block` with identity rows, which
     factor trivially and stay decoupled. Caller handles equilibration /

@@ -1,12 +1,13 @@
-"""Descriptor matching as batched MXU contractions.
+"""Descriptor matching as batched matrix products.
 
 Capability parity with the reference's BFMatcher knn-2 + Lowe ratio matching
 (/root/reference/examples/spherical_sfm_tools.cpp:235-251) and
 match_exhaustive (:575-600). The reference loops over O(N²) image pairs with
 OpenMP and brute-force L2 knn; here one pair's matching is a single
-(K×128)·(128×K) matmul plus a two-smallest reduction, and many pairs batch
-along a leading axis (vmap / shard over a mesh `pairs` axis — SURVEY.md §2.5
-P2).
+(K×128)·(128×K) matmul plus a two-smallest reduction (the plain path, run
+on the CPU) or the streaming Pallas kernel of ops/pallas_matching.py (run
+on the GPU), and many pairs batch along a leading axis (vmap / shard over a
+mesh `pairs` axis — SURVEY.md §2.5 P2).
 
 Convention (matching the reference's reversed query/train roles): features of
 image j (second) are the *queries*; for each query the two nearest neighbors
@@ -25,13 +26,19 @@ _INF = jnp.inf
 
 
 def pairwise_sq_dists(
-    d0: jnp.ndarray, d1: jnp.ndarray, precision=jax.lax.Precision.HIGHEST
+    d0: jnp.ndarray, d1: jnp.ndarray, precision=jax.lax.Precision.HIGHEST,
+    compute_dtype=None,
 ) -> jnp.ndarray:
     """Squared L2 distances (..., N, K) x (..., M, K) -> (..., N, M).
 
-    The inner product rides the MXU; norms are rank-1 updates.
+    The inner product is one batched matrix product (inputs cast to
+    `compute_dtype` when given, accumulated in the inputs' own dtype);
+    norms are rank-1 updates.
     """
-    ip = jnp.einsum("...nk,...mk->...nm", d0, d1, precision=precision)
+    out = jnp.result_type(d0, d1)
+    cdt = out if compute_dtype is None else jnp.dtype(compute_dtype)
+    ip = jnp.einsum("...nk,...mk->...nm", d0.astype(cdt), d1.astype(cdt),
+                    precision=precision, preferred_element_type=out)
     n0 = jnp.sum(d0 * d0, axis=-1)
     n1 = jnp.sum(d1 * d1, axis=-1)
     return jnp.maximum(n0[..., :, None] + n1[..., None, :] - 2.0 * ip, 0.0)
@@ -101,7 +108,7 @@ def nn_to_index_pairs(
     nn (Kq,): train index per query; accept (Kq,): ratio-test survivors.
     Keeps one query per train feature (first by train order — the same
     one-match-per-feature invariant the reference's m01 std::map enforces),
-    via one stable sort instead of a scatter (scatters dominate on TPU).
+    via one stable sort instead of a scatter.
     Returns (idx0 (M,) train, idx1 (M,) query, valid (M,)).
     """
     kq = nn.shape[0]
@@ -122,24 +129,42 @@ def nn_to_index_pairs(
     return idx0, idx1, valid
 
 
-def match_pair_compact(
-    d0: jnp.ndarray,
-    d1: jnp.ndarray,
-    valid0: jnp.ndarray,
-    valid1: jnp.ndarray,
-    max_matches: int,
-    ratio: float = 0.75,
-    use_pallas: bool | None = None,
-):
-    """Ratio-test matching straight to compact index pairs — the hot-path
-    entry used by the exhaustive sweep. Uses the Pallas streaming top-2
-    kernel on TPU backends, the XLA distance-matrix path elsewhere.
-    """
-    i0, i1, valid = match_pairs_compact_batched(
-        d0[None], d1[None], valid0[None], valid1[None],
-        max_matches, ratio, use_pallas,
-    )
-    return i0[0], i1[0], valid[0]
+def matcher_uses_kernel(backend: str) -> bool:
+    """Which two-NN implementation a backend runs: the streaming Pallas
+    kernel (ops/pallas_matching.py, Triton route) on the GPU, the plain XLA
+    distance-matrix path on the CPU."""
+    return backend == "gpu"
+
+
+def two_nn_plain(d0, d1, valid0, valid1, compute_dtype=None):
+    """Plain XLA two-NN of (B, K1) queries against (B, K0) train rows:
+    the full K1×K0 distance block per pair, then `_two_smallest`. The
+    reference the kernel is checked against."""
+
+    def one(dd0, dd1, v0, v1):
+        d = pairwise_sq_dists(dd1, dd0, compute_dtype=compute_dtype)
+        d = jnp.where(v0[None, :], d, _INF)
+        d = jnp.where(v1[:, None], d, _INF)
+        return _two_smallest(d)
+
+    return jax.vmap(one)(d0, d1, valid0, valid1)
+
+
+def two_nearest_neighbors(d0, d1, valid0, valid1, use_kernel=None,
+                          interpret: bool = False):
+    """Two smallest squared distances + argmin of every (B, K1) query
+    against its pair's (B, K0) train rows: the streaming kernel (bf16
+    inputs, f32 accumulation) where `matcher_uses_kernel` says so, the
+    plain path (f32 at HIGHEST) otherwise. `use_kernel` overrides the
+    choice; `interpret=True` runs the kernel in the Pallas interpreter."""
+    if use_kernel is None:
+        use_kernel = matcher_uses_kernel(jax.default_backend())
+    if use_kernel:
+        from .pallas_matching import two_nearest_neighbors_batched
+
+        return two_nearest_neighbors_batched(d0, d1, valid0, valid1,
+                                             interpret=interpret)
+    return two_nn_plain(d0, d1, valid0, valid1)
 
 
 def match_pairs_compact_batched(
@@ -149,27 +174,17 @@ def match_pairs_compact_batched(
     valid1: jnp.ndarray,
     max_matches: int,
     ratio: float = 0.75,
-    use_pallas: bool | None = None,
+    use_kernel: bool | None = None,
+    interpret: bool = False,
 ):
     """Batched exhaustive-sweep matcher → compact (i0, i1, valid) tables.
 
-    The Pallas kernel carries a native pair-batch grid axis (vmapping
-    pallas_call regresses badly); the cheap dedupe/compaction is vmapped.
+    The two-NN search is `two_nearest_neighbors` (implementation by
+    backend unless `use_kernel` says otherwise); the cheap
+    dedupe/compaction is vmapped.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
-    if use_pallas:
-        from .pallas_matching import two_nearest_neighbors_batched
-
-        m1, m2, nn = two_nearest_neighbors_batched(d0, d1, valid0, valid1)
-    else:
-        def one(dd0, dd1, v0, v1):
-            d = pairwise_sq_dists(dd1, dd0)
-            d = jnp.where(v0[None, :], d, _INF)
-            d = jnp.where(v1[:, None], d, _INF)
-            return _two_smallest(d)
-
-        m1, m2, nn = jax.vmap(one)(d0, d1, valid0, valid1)
+    m1, m2, nn = two_nearest_neighbors(d0, d1, valid0, valid1, use_kernel,
+                                       interpret)
     accept = (m1 < (ratio * ratio) * m2) & valid1 & jnp.isfinite(m1)
     return jax.vmap(
         lambda n, a: nn_to_index_pairs(n, a, d0.shape[1], max_matches)

@@ -1,8 +1,8 @@
-"""Dense optical flow on TPU: pyramidal warped Horn–Schunck.
+"""Dense optical flow on the device: pyramidal warped Horn–Schunck.
 
 Capability parity with the reference stitcher's CUDA Brox flow
 (/root/reference/examples/stereo_panorama_tools.cpp:28, 34-57 —
-cv::cuda::BroxOpticalFlow, the repo's single GPU touchpoint). The TPU-native
+cv::cuda::BroxOpticalFlow, the repo's single GPU touchpoint). The JAX
 replacement is a coarse-to-fine variational solver (SURVEY.md §2.5 P7):
 Gaussian pyramid, per level warp the second image by the upsampled flow
 (bilinear gather), linearize (Ix, Iy, It), and relax the Horn–Schunck

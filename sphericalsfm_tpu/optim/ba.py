@@ -1,6 +1,6 @@
 """Bundle adjustment: Levenberg–Marquardt with Schur-complement elimination.
 
-The TPU-native replacement for the reference's Ceres SPARSE_SCHUR solve
+The device replacement for the reference's Ceres SPARSE_SCHUR solve
 (/root/reference/src/sfm.cpp:194-290): reprojection residuals
 e = f·π(R(r)X + t) − uv with Cauchy(1.0) robust loss, per-parameter freeze
 masks (focal / rotation / translation / point — sfm.h:33-36), trust-region LM
@@ -17,8 +17,8 @@ shapes. Camera parameter order per camera is [t(3), r(3)] matching the
 reference's Camera = t∥r layout (sfm_types.h:9), with the shared focal as one
 trailing parameter.
 
-Works in float64 (CPU, exact parity testing) and float32 (TPU path, with
-Jacobi equilibration of the reduced system).
+Works in float64 (CPU, exact parity testing) and float32 (the accelerator
+regime, with Jacobi equilibration of the reduced system).
 """
 
 from __future__ import annotations
@@ -177,10 +177,11 @@ class _SlotTables(NamedTuple):
 
     Built ONCE per bundle_adjust trace, before the LM while_loop: the old
     dense-scan solver re-gathered the per-obs residual/Jacobian arrays
-    through `track_obs` EVERY iteration (~3.6 ms of random gathers at the
-    64-camera bench shape — the single largest piece of its 13 ms step).
-    In slot-major layout those gathers touch only static data and hoist out
-    of the loop; per-iteration work is elementwise/MXU only. Requires a
+    through `track_obs` EVERY iteration (random gathers were the single
+    largest piece of the step at the 64-camera bench shape on the chip this
+    was first built for). In slot-major layout those gathers touch only
+    static data and hoist out of the loop; per-iteration work is
+    elementwise/matmul only. Requires a
     COMPLETE track table (prepare_problem's dense-scan dispatch already
     guarantees one — a truncated table would drop observations).
     """
@@ -213,10 +214,9 @@ def _build_slot_tables(p: BAProblem, dtype) -> _SlotTables:
 def _soa_rodrigues(r0, r1, r2, x0, x1, x2):
     """Structure-of-arrays Rodrigues: p = R(r)·X as component planes.
 
-    Every intermediate is a full (P, T) array, so the VPU runs at full lane
-    occupancy — the packed (N, 10)/(N, 3) form wasted ~92% of the lanes on
-    the tiny minor dims (measured 3.2 ms/step of the 64-cam bench Schur
-    step; this form is ~0.1 ms). Small-angle guards mirror
+    Every intermediate is a full (P, T) array — the packed (N, 10)/(N, 3)
+    form put tiny minor dims in the vector lanes of the chip this was first
+    built for and wasted most of them. Small-angle guards mirror
     geometry/so3.py::_exp exactly. Returns (p0, p1, p2, aux) where aux
     carries (theta_safe, small, a, b, (c0,c1,c2), (d0,d1,d2)) for the
     analytic Jacobian."""
@@ -272,11 +272,12 @@ def _slot_jacobians(focal, cam_t, cam_r, points, st: _SlotTables):
 def _per_obs_jacobians_soa(focal, cam_t, cam_r, points, p: BAProblem):
     """Obs-major analytic SoA twin of `_per_obs_jacobians` (same return
     shapes/values to roundoff). The vmapped-jacfwd path packs parameters
-    into (K, 10) vectors whose tiny minor dims waste ~92% of the VPU lanes
-    (the measurement that motivated the slot-major dense solver); here
+    into (K, 10) vectors whose tiny minor dims wasted most vector lanes on
+    the chip this was first built for (what motivated the slot-major dense
+    solver); here
     every intermediate is a full (K,) plane. Feeds the PCG and dense_pairs
     camera solvers, whose per-LM-iteration Jacobian recompute was pure
-    packed-autodiff until round 5 (VERDICT r4 item 5)."""
+    packed-autodiff before."""
     tg = cam_t[p.obs_cam]
     rg = cam_r[p.obs_cam]
     Xg = points[p.obs_pt]
@@ -293,8 +294,9 @@ def _soa_jacobian_planes(focal, t0, t1, t2, r0, r1, r2, x0, x1, x2,
     """Analytic residual + Jacobian blocks as PLANE TUPLES of any shape
     (...,): the stacked-array wrapper `_soa_jacobians` serves the dense
     slot solver; the plane form feeds the plane-major PCG assembly (a
-    (K, 2, 6) array tiles at ~1% TPU lane occupancy — every op touching
-    one ran ~20-50x off the memory roofline, measured round 5).
+    (K, 2, 6) array tiled at ~1% occupancy on the chip this was first built
+    for; whether the plane form still pays on the GPU waits for
+    re-measurement, ROADMAP 3.6).
 
     Returns (e0, e1), (q0, q1), jc, jx where jc is a 6-list and jx a
     3-list of (d0, d1) column tuples (∂e0/∂θ_j, ∂e1/∂θ_j).
@@ -445,9 +447,9 @@ def _schur_solve(
     e_w, Jf_w, Jc_w, Jx_w = _weight_and_mask(e, Jf, Jc, Jx, p, loss_scale)
 
     # --- Hessian blocks (Gauss-Newton), scatter-free ---
-    # Scatters serialize on TPU; every segment reduction below is either a
-    # gather through the per-point track table or a one-hot contraction on
-    # the MXU.
+    # Scatter-free (chosen where scatters were slow; ROADMAP 3.6): every
+    # segment reduction below is either a gather through the per-point
+    # track table or a one-hot contraction.
     Tmax = p.track_obs.shape[1]
     tmaskf = p.track_mask.astype(dtype)
     tJx = Jx_w[p.track_obs] * tmaskf[..., None, None]    # (P, T, 2, 3)
@@ -460,7 +462,7 @@ def _schur_solve(
     Hpp = jnp.einsum("ptdi,ptdj->pij", tJx, tJx)
     b_p = jnp.einsum("ptdi,ptd->pi", tJx, te)
 
-    # Camera-side reductions via a one-hot (K, C) contraction (MXU).
+    # Camera-side reductions via a one-hot (K, C) contraction.
     oh_cam = (p.obs_cam[:, None] == jnp.arange(C)[None, :]).astype(dtype)
     oh_cam = oh_cam * (p.obs_w > 0)[:, None]
     Hcc = jnp.einsum("kc,kdi,kdj->cij", oh_cam, Jc_w, Jc_w)
@@ -480,8 +482,8 @@ def _schur_solve(
     Hpp_inv = inv3x3(
         Hpp_d + 1e-18 * jnp.eye(3, dtype=dtype)
     )  # (P, 3, 3); zero-track points → ~0 after masking below
-    # (closed-form adjugate: batched LU inv is a TPU tarpit — slow compile
-    # AND slow runtime on thousands of 3×3 blocks)
+    # (closed-form adjugate: batched LU inv was slow to compile AND to run
+    # on thousands of 3×3 blocks on the chip this was first built for)
     Hpp_inv = jnp.where(
         (jnp.sum(p.track_mask, axis=-1) > 0)[:, None, None], Hpp_inv, 0.0
     )
@@ -490,7 +492,7 @@ def _schur_solve(
     # S = Hcc − W Hpp⁻¹ Wᵀ factorizes through per-point camera aggregates:
     # A[p, c, i, x] = Σ_a 1[cam(p,a)=c]·(U_a Hpp⁻¹)[i, x] and
     # B[p, c, j, x] = Σ_b 1[cam(p,b)=c]·U_b[j, x], so the Schur term is the
-    # single MXU contraction Σ_p A·Bᵀ. The per-point camera one-hot is built
+    # single contraction Σ_p A·Bᵀ. The per-point camera one-hot is built
     # in point chunks to bound memory (chunk × T × C floats).
     tU_inv = jnp.einsum("ptij,pjk->ptik", tU, Hpp_inv)         # U·Hpp⁻¹
     tF_sum = jnp.sum(tF_slot, axis=1)                          # (P, 3)
@@ -499,7 +501,7 @@ def _schur_solve(
     # Chunk size bounded by the (chunk, T, C) one-hot's footprint — a video
     # map can pair T≈256-long tracks with hundreds of cameras, and a fixed
     # 4096-point chunk would materialize gigabytes. ~64M f32 (256 MB) per
-    # scan step keeps the MXU fed without the blowup.
+    # scan step keeps the matmuls large without the blowup.
     chunk = max(128, min(P, (64 << 20) // max(Tmax * C, 1), 4096))
     n_chunks = -(-P // chunk)
     Ppad = n_chunks * chunk
@@ -596,20 +598,20 @@ def _schur_solve_slots(
     """Slot-major dense Schur step — the speed-of-light rewrite of
     `_schur_solve` (same math, same damping, same dense camera solve).
 
-    Three structural changes, each targeting a measured TPU sink at the
-    64-cam / 40.8k-obs bench shape (scripts/profile_ba_scan.py):
+    Three structural changes, each targeting a sink measured at the
+    64-cam / 40.8k-obs bench shape on another chip (the layout waits for
+    re-measurement on the GPU, ROADMAP 3.3/3.6):
       * residuals/Jacobians are computed directly in the (P, T) track
         layout from loop-invariant slot tables — no per-iteration
-        track-table gathers (was ~3.6 ms of random gathers);
+        track-table gathers;
       * every tiny-contraction einsum (d=2 / x=3 inner dims, which XLA
         lowers to pad-wasted batched micro-matmuls) is a broadcast
-        multiply-sum on the VPU (point blocks were ~3.4 ms);
+        multiply-sum;
       * ALL camera-indexed reductions ride ONE chunked one-hot scan whose
-        payloads concatenate into a single (C, chunkT)×(chunkT, 60) MXU
+        payloads concatenate into a single (C, chunkT)×(chunkT, 60)
         matmul, and the Schur correction uses the symmetric (U·L)(U·L)ᵀ
         form (Hpp⁻¹ = LLᵀ via chol3x3) so one aggregated operand feeds a
-        syrk-shaped contraction (separate obs-major one-hot reductions
-        were ~1.8 ms on top of the ~3.7 ms fill).
+        syrk-shaped contraction.
     """
     C = p.cam_t.shape[0]
     P, Tmax = st.cam.shape
@@ -635,7 +637,7 @@ def _schur_solve_slots(
     Jc_w = Jc * sw[..., None] * free_c[..., None, :]      # (P, T, 2, 6)
     Jx_w = Jx * sw[..., None] * free_x[:, None, None, None]
 
-    # --- point blocks as broadcast multiply-sums (VPU) ---
+    # --- point blocks as broadcast multiply-sums ---
     Hpp = jnp.sum(Jx_w[..., :, None] * Jx_w[..., None, :], axis=(1, 2))
     b_p = jnp.sum(Jx_w * e_w[..., None], axis=(1, 2))     # (P, 3)
     # Camera-point coupling U = Jcᵀ Jx per slot and the focal column.
@@ -733,10 +735,11 @@ def _schur_solve_slots(
 
     # --- point back-substitution: broadcast the camera step to slots, then
     # contract against the ALREADY computed per-slot coupling tU —
-    # Wᵀ dx_c per point = Σ_{t,i} U·dx. Two broadcast forms: a one-hot MXU
-    # matmul when the (P·T, C+1) operand is small (measured faster than the
-    # gather at the 64-cam bench shape), a row gather when materializing it
-    # would cost GBs of HBM traffic (video maps: C≈264 × 1.8M slots ≈ 2 GB).
+    # Wᵀ dx_c per point = Σ_{t,i} U·dx. Two broadcast forms: a one-hot
+    # matmul when the (P·T, C+1) operand is small (faster than the gather
+    # at the 64-cam bench shape on another chip), a row gather when
+    # materializing it would cost GBs of HBM traffic (video maps: C≈264 ×
+    # 1.8M slots ≈ 2 GB).
     d_cam_pad = jnp.concatenate([d_cam, jnp.zeros((1, 6), dtype)], axis=0)
     if P * Tmax * (C + 1) <= (64 << 20):
         oh_bs = (
@@ -774,50 +777,26 @@ def _sorted_segment_sum(x, ptr):
     """Segment sums of rows of `x` (K, d) grouped contiguously by segment.
 
     `ptr` (S+1,) holds segment boundaries (ptr[s] ≤ k < ptr[s+1] ⇒ row k is in
-    segment s). Scatter-free: two-level blocked prefix sums (block tree-sums in
-    registers, a short cumsum over blocks) + boundary gathers — scatters
-    serialize on TPU (CLAUDE.md), and a one-hot (K, S) contraction would
-    materialize K·S memory. Rounding error grows like √(K/B) not √K.
+    segment s; empty segments and rows outside [ptr[0], ptr[S]) allowed).
+    A segmented inclusive scan (log-depth, deterministic) whose running sum
+    restarts at every segment's first row, read at every segment's last row:
+    each sum adds only its own segment's rows, so the f32 rounding is
+    relative to that segment. A difference of global prefix sums is not: its
+    error scales with the whole table, and on a 2000-camera ring (1.04M
+    observations) it left the f32 PCG solve at 3.6x the f64 cost.
     """
-    K, d = x.shape
-    B = 128
-    nb = max(1, -(-K // B))
-    # Mean-center before the prefix sums: a segment sum recovered as a
-    # difference of GLOBAL prefixes carries absolute error ~eps·(K·μ) — for
-    # same-sign columns (Hessian diagonals) that is ~(K/seg_len)× the
-    # segment's own magnitude, enough to make assembled camera blocks
-    # indefinite at small LM damping (observed: NaN preconditioner Cholesky
-    # → silent zero PCG steps at C=256). Centered rows random-walk at
-    # ~eps·√K·σ instead, and the mean part is restored exactly as
-    # seg_len·μ (seg_len is an exact integer, so this add-back is
-    # eps-relative to the segment itself).
-    mu = jnp.mean(x, axis=0, keepdims=True)
-    x = x - mu
-    xp = jnp.zeros((nb * B, d), x.dtype).at[:K].set(x)
-    blocks = xp.reshape(nb, B, d)
-    bsums = jnp.sum(blocks, axis=1)
-    bcum_ex = jnp.concatenate(
-        [jnp.zeros((1, d), x.dtype), jnp.cumsum(bsums, axis=0)[:-1]], axis=0
-    )
-    idx = jnp.clip(ptr, 0, nb * B)
-    bi = jnp.minimum(idx // B, nb - 1)
-    off = idx - bi * B  # in [0, B]
-    # Within-block partial at each boundary via ONE row gather from the
-    # within-block inclusive prefix sums — NOT a (S+1, B, d) block gather,
-    # which explodes when S ≫ nb (the pairs-dense assembly reduces over C²
-    # segments).
-    pcum = jnp.cumsum(blocks, axis=1).reshape(nb * B, d)
-    row = bi * B + jnp.maximum(off - 1, 0)
-    Wpart = pcum[row] * (off > 0).astype(x.dtype)[:, None]  # (S+1, d)
-    # Keep the global block prefix and the within-block partial SEPARATE
-    # until after differencing: adding them first absorbs the small partial
-    # into the large prefix (f32), so short segments nestled deep in the
-    # table would come back as pure roundoff of the global magnitude. With
-    # the split, a segment inside one block cancels its block prefix
-    # exactly and only within-block (≤B-row) arithmetic remains.
-    Bpart = bcum_ex[bi]                                  # (S+1, d)
-    seg_len = (ptr[1:] - ptr[:-1]).astype(x.dtype)[:, None]
-    return (Bpart[1:] - Bpart[:-1]) + (Wpart[1:] - Wpart[:-1]) + seg_len * mu
+    K = x.shape[0]
+    nonempty = ptr[1:] > ptr[:-1]
+    first = jnp.zeros((K,), jnp.int32).at[ptr[:-1]].max(
+        nonempty.astype(jnp.int32), mode="drop") > 0
+
+    def combine(a, b):
+        (va, fa), (vb, fb) = a, b
+        return jnp.where(fb, vb, va + vb), fa | fb
+
+    run, _ = jax.lax.associative_scan(combine, (x, first[:, None]))
+    last = jnp.clip(ptr[1:] - 1, 0, K - 1)
+    return jnp.where(nonempty[:, None], run[last], 0).astype(x.dtype)
 
 
 class _ReducedSystem(NamedTuple):
@@ -898,13 +877,11 @@ def _assemble_reduced(e, Jf, Jc, Jx, p: BAProblem, lam, loss_scale,
     seg = _sorted_segment_sum(
         jnp.concatenate([Hk, bk, fk, Mk, gk, fck], axis=-1), p.cam_ptr
     )  # (C, 96)
-    # Frozen parameter dims must be EXACT zeros, not segment sums of zero
-    # rows: the sum carries absolute roundoff at the global-table magnitude
-    # (~eps·√K·σ), which lands in rows whose true value is 0 — the gauge
-    # camera's all-frozen block came back indefinite at ±σ-level noise, its
-    # block-Jacobi Cholesky went NaN, and PCG silently returned a zero step.
-    # The masks are known statics of the problem; apply them everywhere the
-    # camera system is touched (blocks, rhs, matvec, preconditioner).
+    # Frozen parameter dims must be EXACT zeros: an all-frozen gauge block
+    # that came back as ±roundoff was indefinite, its block-Jacobi Cholesky
+    # went NaN, and PCG silently returned a zero step. The masks are known
+    # statics of the problem; apply them everywhere the camera system is
+    # touched (blocks, rhs, matvec, preconditioner).
     free_c = jnp.concatenate(
         [
             jnp.repeat((~p.trans_fixed).astype(dtype)[:, None], 3, -1),
@@ -940,62 +917,14 @@ def _assemble_reduced(e, Jf, Jc, Jx, p: BAProblem, lam, loss_scale,
     )
 
 
-def _sorted_segment_sum_T(xT: jnp.ndarray, ptr: jnp.ndarray) -> jnp.ndarray:
-    """Plane-major twin of `_sorted_segment_sum`: xT (d, K) → (S, d).
-
-    Same two-level scheme and the same three numerics defenses
-    (mean-centering, split Bpart/Wpart differencing, exact seg_len·μ
-    add-back), but laid out for the TPU: each plane is a contiguous (K,)
-    row (full 8×128 tiling — the row-major (K, d) form puts d in the lanes
-    at d/128 occupancy), and the within-block inclusive prefix runs as ONE
-    batched 128×128 lower-triangular matmul on the MXU at HIGHEST
-    precision instead of a sublane-axis cumsum (measured 2.6× on the
-    (96, 1M) camera-side assembly reduction, and the callers avoid the
-    (K, d) interleaved stores entirely)."""
-    d, K = xT.shape
-    B = 128
-    nb = max(1, -(-K // B))
-    dtype = xT.dtype
-    mu = jnp.mean(xT, axis=1, keepdims=True)
-    xT = xT - mu
-    xp = jnp.zeros((d, nb * B), dtype).at[:, :K].set(xT)
-    blocks = xp.reshape(d, nb, B)
-    Ltri = jnp.tril(jnp.ones((B, B), dtype))
-    # pcum[d, n, c] = Σ_{b ≤ c} blocks[d, n, b] — cumsum as MXU matmul
-    pcum = jax.lax.dot_general(
-        blocks, Ltri, (((2,), (1,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    bsums = pcum[:, :, -1]                                # (d, nb)
-    bcum_ex = jnp.concatenate(
-        [jnp.zeros((d, 1), dtype), jnp.cumsum(bsums, axis=1)[:, :-1]],
-        axis=1,
-    )
-    idx = jnp.clip(ptr, 0, nb * B)
-    bi = jnp.minimum(idx // B, nb - 1)
-    off = idx - bi * B
-    row = bi * B + jnp.maximum(off - 1, 0)
-    Wpart = pcum.reshape(d, nb * B)[:, row] * (
-        (off > 0)[None, :].astype(dtype)
-    )
-    Bpart = bcum_ex[:, bi]
-    seg_len = (ptr[1:] - ptr[:-1]).astype(dtype)[None, :]
-    out = (
-        (Bpart[:, 1:] - Bpart[:, :-1])
-        + (Wpart[:, 1:] - Wpart[:, :-1])
-        + seg_len * mu
-    )
-    return out.T
-
-
 def _assemble_reduced_planes(focal, cam_t, cam_r, points, p: BAProblem,
                              lam, loss_scale, solve_dtype) -> _ReducedSystem:
     """Plane-major `_assemble_reduced`: Jacobians, robust weighting, and
     every per-obs product stay (K,) component planes until the one stacked
     (d, K) segment-sum input — no (K, 2, 6)/(K, 6, 3) intermediates (whose
-    ~1-10% TPU tile occupancy made the row-major assembly run ~20× off the
-    memory roofline: 142 ms of the 172 ms PCG LM step at 2000 cams/1M obs,
-    measured round 5). Produces the identical _ReducedSystem (same column
+    low tile occupancy made the row-major assembly the dominant cost of the
+    2000-camera PCG LM step on the chip this was first built for; waits
+    for re-measurement on the GPU, ROADMAP 1.3). Produces the identical _ReducedSystem (same column
     order; symmetric entries share plane objects, so the decode matches
     `_assemble_reduced` exactly)."""
     C = p.cam_t.shape[0]
@@ -1035,8 +964,8 @@ def _assemble_reduced_planes(focal, cam_t, cam_r, points, p: BAProblem,
     # [JxJx (3x3 row-major), bpk (3), fxk (3), wk_live (1)]; the symmetric
     # JxJx entries reuse one plane per unordered pair. The pt_order
     # permutation applies to the STACKED (K, 16) table as ONE row gather —
-    # a per-plane (K,) gather costs ~7 ms EACH on TPU (scalar-granularity
-    # random access; measured round 5), a 16-column row gather ~2 ms total.
+    # per-plane (K,) gathers were each several times dearer than one
+    # 16-column row gather on the chip this was first built for.
     jxjx = {}
     for i in range(3):
         for j in range(i, 3):
@@ -1093,7 +1022,7 @@ def _assemble_reduced_planes(focal, cam_t, cam_r, points, p: BAProblem,
                    for i in range(6)]
     cam_planes += [sum(FHpi_g[x] * U[j][x] for x in range(3))
                    for j in range(6)]
-    seg = _sorted_segment_sum_T(jnp.stack(cam_planes), p.cam_ptr)  # (C, 96)
+    seg = _sorted_segment_sum(jnp.stack(cam_planes, axis=-1), p.cam_ptr)
 
     free_c = jnp.concatenate(
         [
@@ -1178,10 +1107,10 @@ def _schur_solve_dense_pairs(
     contributes −U_a Hpp⁻¹ U_bᵀ to block (cam_a, cam_b), reduced by one
     sorted segment sum over the C² block keys. Unlike the track-table
     one-hot scan this costs nothing extra for long tracks paired with many
-    cameras (the scan's (chunk, T, C) one-hot made dense assembly ~15×
+    cameras (the scan's (chunk, T, C) one-hot made dense assembly far
     slower than the Cholesky itself on 256-camera video maps), so the
-    exact solver stays the fastest choice through ~512 cameras
-    (scripts/bench_ba_forcing.py). Same role as Ceres DENSE_SCHUR
+    exact solver stayed the fastest choice through ~512 cameras on the chip
+    this was first built for (scripts/bench_ba_forcing.py; ROADMAP 3.3). Same role as Ceres DENSE_SCHUR
     (sfm.cpp:200-212).
     """
     rs = _assemble_reduced(e, Jf, Jc, Jx, p, lam, loss_scale, solve_dtype)
@@ -1204,12 +1133,11 @@ def _dense_pairs_from_rs(rs: _ReducedSystem, p: BAProblem, lam, solve_dtype):
 
     # --- off-diagonal fill from observation pairs ---
     # Chunked over pairs, with the contraction written as fusable
-    # broadcast-multiply-sums. BOTH choices are memory-critical on TPU: a
-    # single dot_general producing (Np, 6, 6) gets the (8, 128) tile
-    # layout on its trailing dims — a 28.4× padding expansion that turned
-    # a 288 MB pair table into an 8 GB buffer and OOM'd the 16 GB chip on
-    # the 256-frame video map (2M pairs). The VPU form fuses into the
-    # chunk's segment sum with no materialized (·, 6, 6) tensor, and the
+    # broadcast-multiply-sums. Both choices bound memory: a single
+    # dot_general producing (Np, 6, 6) can get a padded tile layout on its
+    # trailing dims (on the chip this was first built for it multiplied a
+    # pair table's footprint ~28×). The broadcast form fuses into
+    # the chunk's segment sum with no materialized (·, 6, 6) tensor, and the
     # scan bounds peak memory to one chunk regardless of fusion decisions.
     Np_total = p.cc_pair_a.shape[0]
     chunk = min(Np_total, 1 << 18)
@@ -1270,11 +1198,10 @@ def _dense_schur_factor_solve(S_cc, S_fc, S_ff, r_c, r_f, solve_dtype,
     dscale = jnp.sqrt(jnp.maximum(jnp.diagonal(S), 1e-12))
     S_eq = S / dscale[:, None] / dscale[None, :]
     S_eq = S_eq + 1e-10 * jnp.eye(D, dtype=solve_dtype)
-    # XLA cholesky + triangular solves: measured 0.75 ms at D=385 inside
-    # the fused LM body (fori-marginal) — the blocked-scan alternative
-    # (ops/linalg.py::block_chol_solve) was 2× SLOWER in context (its 2·D/b
-    # sequential scan steps don't overlap with anything), so it is kept
-    # only for mesh-sharded paths where XLA's cholesky is unavailable.
+    # XLA cholesky + triangular solves: inside the fused LM body the
+    # blocked-scan alternative (ops/linalg.py::block_chol_solve) was
+    # SLOWER on the chip this was first built for (its 2·D/b sequential
+    # scan steps don't overlap with anything); not re-measured on the GPU.
     L = jnp.linalg.cholesky(S_eq)
     y = jax.scipy.linalg.solve_triangular(L, -(rhs / dscale), lower=True)
     dx = jax.scipy.linalg.solve_triangular(L.T, y, lower=False)
@@ -1288,7 +1215,7 @@ def _schur_solve_pcg(
 ):
     """Matrix-free Schur step: block-Jacobi preconditioned CG camera solve.
 
-    Never materializes the (C, C, 6, 6) reduced system — the TPU-native
+    Never materializes the (C, C, 6, 6) reduced system — the matrix-free
     answer to Ceres SPARSE_SCHUR (sfm.cpp:200-212) at the reference's
     every-frame-is-a-keyframe scale (thousands of cameras). Requires
     `p.cam_ptr`/`p.pt_ptr` (the observation table sorted by camera, plus the
@@ -1526,7 +1453,11 @@ def _pcg_from_rs(rs: _ReducedSystem, p: BAProblem, lam, solve_dtype,
         xc, xf, rc, rf, pc, pf, rz, it = st
         Apc, Apf = matvec(pc, pf)
         denom = jnp.sum(pc * Apc) + pf * Apf
-        alpha = rz / jnp.where(jnp.abs(denom) > 1e-30, denom, 1e-30)
+        # Non-positive curvature means f32 rounding has made the operator
+        # indefinite along pc: stop with the current iterate, as Ceres's CG
+        # does ("matrix is indefinite"), instead of stepping along it.
+        curved = denom > 1e-30
+        alpha = jnp.where(curved, rz / jnp.where(curved, denom, 1.0), 0.0)
         xc = xc + alpha * pc
         xf = xf + alpha * pf
         rc = rc - alpha * Apc
@@ -1536,7 +1467,8 @@ def _pcg_from_rs(rs: _ReducedSystem, p: BAProblem, lam, solve_dtype,
         beta = rz_new / jnp.where(jnp.abs(rz) > 1e-30, rz, 1e-30)
         pc = zc + beta * pc
         pf = zf + beta * pf
-        return xc, xf, rc, rf, pc, pf, rz_new, it + 1
+        return (xc, xf, rc, rf, pc, pf, rz_new,
+                jnp.where(curved, it + 1, pcg_iters))
 
     xc, xf, *_ = jax.lax.while_loop(pcg_cond, pcg_body, state0)
     d_cam = xc.astype(dtype)
@@ -1670,11 +1602,13 @@ def bundle_adjust(
     long-track maps), "pcg" (matrix-free block-Jacobi CG — scales past the
     dense wall, the Ceres SPARSE_SCHUR analogue), or "auto" (pcg above 512
     cameras; below that the faster of the two exact assemblies by predicted
-    cost — scan ∝ P·Tmax·C on the MXU vs pairs ∝ ΣT² gather-bound). `pcg_coarse` > 0 adds an
-    aggregated coarse-grid level to the preconditioner (off by default:
-    with the 25-iteration inexact-Newton cap the Galerkin setup cost per LM
-    iteration outweighs the CG iterations it saves — 2000-cam ring: 1.77
-    iters/s coarse-off vs 1.62 coarse-on at equal-or-better reached cost).
+    cost — scan ∝ P·Tmax·C matmul work vs pairs ∝ ΣT² gather-bound).
+    `pcg_coarse` > 0 adds an aggregated coarse-grid level to the
+    preconditioner (off by default: with the 25-iteration inexact-Newton
+    cap its Galerkin setup cost per LM iteration outweighed the CG
+    iterations it saved on the 2000-camera ring, measured on another chip).
+    The dispatch constants were all chosen on another chip and wait for
+    re-derivation on the H100 (ROADMAP 3.3).
     """
     p, camera_solver = prepare_problem(p, camera_solver, pcg_coarse)
     return _bundle_adjust_jit(
@@ -1698,12 +1632,12 @@ def prepare_problem(
     C = p.cam_t.shape[0]
     pick_dense_flavor = False
     if camera_solver == "auto":
-        # The exact dense solve wins well past the old 160-camera cutoff:
-        # at C=256 it runs 3× faster per LM iteration than the best PCG
-        # forcing and converges slightly lower; at C=512 they tie on speed
-        # and dense still wins on cost (scripts/bench_ba_forcing.py, TPU
-        # v5e). Past ~512 the (C,C,6,6) reduced system's memory and O(C³)
-        # factorization take over — switch to the matrix-free PCG. Which
+        # The 512-camera switch to the matrix-free PCG was chosen on
+        # another chip (scripts/bench_ba_forcing.py: the exact dense solve
+        # was faster per LM iteration and reached a lower cost below it;
+        # past it the (C,C,6,6) reduced system's memory and O(C³)
+        # factorization take over). It waits for re-derivation on the
+        # H100 (ROADMAP 3.3). Which
         # dense ASSEMBLY wins is workload-dependent and decided below once
         # the pair count is known.
         if C > 512:
@@ -1718,14 +1652,10 @@ def prepare_problem(
         p = sort_obs_by_camera(p)
     if pick_dense_flavor:
         # Two exact dense assemblies with opposite scaling: the one-hot
-        # track-table scan is MXU work ∝ P·Tmax·C (ruinous when a video
+        # track-table scan is matmul work ∝ P·Tmax·C (ruinous when a video
         # map pairs 256-long tracks with hundreds of cameras), while the
         # observation-pair fill is GATHER-bound work ∝ ΣT² (three random
-        # 18/9-float gathers per pair — measured ~40× the per-element cost
-        # of the scan's one-hot contractions on v5e, scripts/
-        # profile_ba_pieces.py: scan 13.4 ms at 6.7M elements vs pairs
-        # fill 18.4 ms at 0.26M pairs on the 64-cam bench map, same
-        # converged cost). Pick by predicted cost; the scan additionally
+        # 18/9-float gathers per pair). Pick by predicted cost; the scan additionally
         # requires a COMPLETE track table (a truncated one silently drops
         # observations from the point blocks only).
         import numpy as np
@@ -1739,15 +1669,10 @@ def prepare_problem(
         scan_elems = p.points.shape[0] * p.track_obs.shape[1] * C
         slots = p.points.shape[0] * p.track_obs.shape[1]
         npairs = count_cc_pairs(p)
-        # Crossover re-measured after the slot-major SoA rewrite of the
-        # scan solver (scripts/bench_ba_video.py, real 256-frame video map:
-        # C=264, K=195k, Tmax=56, scan_elems=484M, npairs=1.78M → slot
-        # scan 91 ms/iter vs pairs/PCG ~210, at LOWER cost per iteration):
-        # per-scan-element ~0.19 ns vs per-pair ~120 ns ⇒ break-even ratio
-        # ~600; 500 keeps a safety margin (the old 40× was measured on the
-        # pre-rewrite gather-bound scan). The slot-table HBM guard (~8M
-        # slots ≈ 5 GB peak of (P,T,·) payloads) keeps pathological
-        # long-track × many-point maps off the dense path.
+        # The 500× scan-element/pair ratio and the 8M-slot guard (~5 GB
+        # peak of (P,T,·) payloads) were chosen on another chip with less
+        # memory (scripts/bench_ba_video.py) and wait for re-derivation on
+        # the 80 GB H100 (ROADMAP 3.3).
         if track_complete and slots <= 8_000_000 and (
             scan_elems < 500 * max(npairs, 1)
         ):
@@ -1757,9 +1682,10 @@ def prepare_problem(
     if camera_solver == "dense_pairs" and p.cc_ptr is None:
         # Pair-table memory bound: the fill materializes ~400 B/pair of
         # gathers + contractions on device (Ua/Ub/Hpi/Mab), so a long-track
-        # video map's ΣT² (measured 15M pairs on the 256-frame bench map)
-        # blows the 16 GB HBM — that exact OOM shipped when the cap was
-        # 32M. Above ~5M pairs the matrix-free PCG is both safe and faster.
+        # video map's ΣT² can exhaust device memory. _DENSE_PAIRS_CAP was
+        # sized for a chip with less memory and waits for re-derivation on
+        # the 80 GB H100 (ROADMAP 3.3); above it the matrix-free PCG runs
+        # instead.
         if count_cc_pairs(p) > _DENSE_PAIRS_CAP:
             camera_solver = "pcg"
         else:
@@ -1868,12 +1794,13 @@ def _bundle_adjust_jit(
     solve_dtype = jnp.dtype(solve_dtype_name)
     dtype = p.points.dtype
 
-    # TPU MXU default precision rounds f32 matmul INPUTS to bf16 — a ~1e-2
+    # A backend's default matmul precision may round f32 INPUTS (bf16 on
+    # the chip this was first built for, TF32 on the GPU) — a ~1e-3..1e-2
     # relative error in every Hessian contraction and PCG matvec. Harmless
-    # early on, but near convergence the true step shrinks below the bf16
-    # noise floor and LM stalls far above the real optimum (measured: 2.5×
-    # worse final cost on the 256-camera ring vs the identical f32 run on
-    # CPU). These contractions are small; HIGHEST costs little here. The
+    # early on, but near convergence the true step shrinks below that
+    # noise floor and LM stalls far above the real optimum (with bf16
+    # inputs the 256-camera ring ended at 2.5× the f32 cost). Whether these
+    # contractions hold under TF32 is ROADMAP 1.6. The
     # context applies at trace time, so it covers the while_loop body too.
     # `matmul_precision` exists so the 3-pass "high" mode can be measured
     # against the 6-pass default on real workloads (scripts/bench_ba_precision.py).

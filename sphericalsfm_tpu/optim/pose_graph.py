@@ -11,7 +11,7 @@ Capability parity with the reference's
   warps θxy via θ' = atan2(2f·sinθxy, (1+f²)cosθxy + (1−f²)), and rotations
   and f are optimized jointly (f bound-constrained).
 
-TPU-native design: the graph is an edge list (i, j, r_meas); residual
+Device design: the graph is an edge list (i, j, r_meas); residual
 Jacobians (two 3×3 blocks per edge + optional focal column) are computed by
 vmapped forward-mode autodiff and scattered into dense block normal equations
 — one fused kernel per LM iteration, no per-edge host work. The 1024-trial
@@ -140,8 +140,9 @@ def _robust_block_lm(
     if solver == "auto":
         solver = "pcg" if N > 400 else "dense"
 
-    # TPU MXU default precision rounds f32 matmul inputs to bf16; the
-    # normal-equation contractions here need true f32 or LM stalls above the
+    # A backend's default matmul precision may round f32 inputs (TF32 on
+    # the GPU); the normal-equation contractions here need true f32 or LM
+    # stalls above the
     # real optimum near convergence (see _bundle_adjust_jit).
     with jax.default_matmul_precision("highest"):
         return _robust_block_lm_body(
@@ -198,8 +199,8 @@ def _robust_block_lm_body(
         J1 = J[:, :, 3:6] * free[edge_j][:, None, None]
         return res, J, J0, J1, w
 
-    # Sorted edge orders for scatter-free node reductions (both solvers —
-    # scatters serialize on TPU, CLAUDE.md). Topology is constant through
+    # Sorted edge orders for scatter-free node reductions (both solvers;
+    # chosen where scatters were slow, CLAUDE.md). Topology is constant through
     # the LM loop, so the sorts happen once per trace.
     order_i = jnp.argsort(edge_i)
     ptr_i = jnp.searchsorted(edge_i[order_i], jnp.arange(N + 1))
@@ -243,11 +244,9 @@ def _robust_block_lm_body(
         seg = seg_i(jnp.concatenate(
             [A0.reshape(E, 9), g0, f0], axis=-1
         )) + seg_j(jnp.concatenate([A1.reshape(E, 9), g1, f1], axis=-1))
-        # Gauge-frozen nodes must be EXACT zeros: their rows are zeroed at
-        # the edge level, but the segment sum reconstructs them with
-        # absolute roundoff at the global edge-table magnitude — enough to
-        # make the frozen node's Jacobi block indefinite (NaN Cholesky →
-        # silent zero CG steps; same failure mode as the BA camera solve).
+        # Gauge-frozen nodes must be EXACT zeros: a frozen node's Jacobi
+        # block at roundoff level can be indefinite (NaN Cholesky → silent
+        # zero CG steps; same failure mode as the BA camera solve).
         Hnn = seg[:, :9].reshape(N, 3, 3) * free[:, None, None]
         gnode = seg[:, 9:12] * free[:, None]
         fnode = seg[:, 12:15] * free[:, None]
@@ -333,8 +332,7 @@ def _robust_block_lm_body(
         """Scatter-free normal equations: node blocks and gradients via the
         sorted segment sums, off-diagonal blocks via the (i, j)-keyed
         segment sum (one edge = one upper-triangle block). Frozen (gauge /
-        padded) nodes are masked to exact zeros — segment-sum roundoff at
-        the global magnitude would otherwise land in their zero rows."""
+        padded) nodes are masked to exact zeros."""
         res, J, J0, J1, w = edge_terms(rots, extra)
         wj = w[:, None, None]
         E = res.shape[0]
@@ -675,7 +673,7 @@ def initialize_rotations_tree(
 
     R_global[v] = A[v]·A[parent]·…·I with A[v] the parent→v relative rotation
     (x_child = A x_parent, world→camera chaining as in the sequential init).
-    ⌈log₂N⌉ batched gather+matmul rounds — no sequential chain, TPU-friendly.
+    ⌈log₂N⌉ batched gather+matmul rounds — no sequential chain.
     """
     dtype = g.r_meas.dtype
     Rm = so3_exp(g.r_meas)
@@ -861,7 +859,7 @@ def find_best_focal_bracketed(
 ):
     """Bracketed 1-D focal minimization (reference
     find_best_focal_length_opt, spherical_sfm_tools.cpp:1191-1319: GSL Brent
-    with a random-restart bracketing precondition). TPU-shaped variant:
+    with a random-restart bracketing precondition). Batched variant:
     instead of one point per sequential Brent step, each round evaluates a
     vmapped sub-grid inside the bracket and shrinks around its argmin —
     same O(log) convergence, `rounds` device calls total.

@@ -1,10 +1,10 @@
 """Multi-host (multi-process) distribution entry point.
 
 The reference is single-process (SURVEY.md §5.8: no MPI/NCCL — OpenMP only);
-the TPU-native framework scales across hosts with `jax.distributed`: each
-process drives its local chips, the mesh spans every process, and the same
-`psum`/`ppermute` collectives that ride ICI within a slice ride DCN across
-hosts. Nothing else in the package changes — `make_mesh()` built from
+the framework scales across hosts with `jax.distributed`: each process
+drives its local devices, the mesh spans every process, and the same
+`psum`/`ppermute` collectives that run over NVLink within a host run over
+the network across hosts. Nothing else in the package changes — `make_mesh()` built from
 `jax.devices()` (the *global* device list after initialization) makes every
 sharded entry point (distributed BA, pairwise sweep, ring matcher)
 multi-host transparently.
@@ -15,8 +15,8 @@ Launch recipe (per process):
     SPHERICALSFM_NUM_PROCESSES=2 \
     SPHERICALSFM_PROCESS_ID=<0|1> python my_run.py
 
-with `initialize_distributed()` called before any other JAX use. On cloud
-TPU slices the three env vars can be omitted (JAX autodetects).
+with `initialize_distributed()` called before any other JAX use. Nothing
+detects a cluster here: the three env vars are required.
 """
 
 from __future__ import annotations

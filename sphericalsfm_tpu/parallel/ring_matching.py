@@ -1,11 +1,10 @@
 """Ring-sharded exhaustive matching: the O(N²) sweep over a device mesh.
 
 The reference sweeps all frame pairs with OpenMP (spherical_sfm_tools.cpp:
-575-600). Across a TPU mesh the idiomatic layout (SURVEY.md §5.7, the
+575-600). Across a device mesh the idiomatic layout (SURVEY.md §5.7, the
 sequence-parallel analogue) is a *ring*: each device holds one block of
 frames' descriptors; at step s every device matches its resident block
-against the block that has rotated s hops around the ring (`ppermute` over
-ICI). After nd steps every block pair has met exactly once — structurally
+against the block that has rotated s hops around the ring (`ppermute`). After nd steps every block pair has met exactly once — structurally
 identical to ring attention, with descriptor blocks in place of KV blocks.
 
 Matches are compacted to fixed-width (idx0, idx1, mask) tables *inside the
@@ -14,7 +13,7 @@ O(F²·max_matches) — never the O(F²·K) dense nearest-neighbor field, and
 never a host-side reassembly loop.
 
 Works identically on a CPU mesh (`--xla_force_host_platform_device_count`)
-and a TPU slice.
+and on several GPUs.
 """
 
 from __future__ import annotations

@@ -7,13 +7,14 @@ parallel axes map onto a device mesh as:
       shard_map with zero collectives)
   BA observations and points      → `data` axis, cameras replicated; the
       reduced camera system is assembled locally per shard and `psum`-reduced
-      over ICI, the dense camera solve is replicated, and point
-      back-substitution stays local to each shard (the Schur-reduction
-      layout of BASELINE.json's north star)
+      across devices, the dense camera solve is replicated, and point
+      back-substitution stays local to each shard
   focal hypotheses                → `data` axis (one vmap, sharded)
 
 Everything works on a CPU mesh (`--xla_force_host_platform_device_count`)
-for testing and on a TPU slice unchanged.
+for testing and on several GPUs unchanged. The mesh is 1-D and follows the
+algorithm alone: the cards of a host reach each other all to all over
+NVLink, so device order does not matter.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..optim.ba import BAProblem
@@ -40,7 +40,7 @@ def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
             f"visible (set XLA_FLAGS=--xla_force_host_platform_device_count "
             f"for a virtual CPU mesh)"
         )
-    return Mesh(mesh_utils.create_device_mesh((n,), devs[:n]), (axis,))
+    return Mesh(np.asarray(devs[:n]), (axis,))
 
 
 def data_sharding(mesh: Mesh) -> NamedSharding:
@@ -235,6 +235,8 @@ def distributed_bundle_adjust(
     max_iters: int = 10,
     solve_dtype_name: str = "float32",
     camera_solver: str = "dense",
+    pcg_iters: int = 200,
+    pcg_rtol: float = 1e-8,
 ):
     """Bundle adjustment with mesh-sharded observations/points.
 
@@ -256,5 +258,6 @@ def distributed_bundle_adjust(
     with mesh:
         return bundle_adjust(
             p_sharded, max_iters=max_iters, solve_dtype_name=solve_dtype_name,
-            camera_solver=camera_solver,
+            camera_solver=camera_solver, pcg_iters=pcg_iters,
+            pcg_rtol=pcg_rtol,
         )

@@ -1,6 +1,6 @@
 """Visual debug artifacts for reconstruction runs.
 
-`write_reprojection_overlays` is the TPU-pipeline analogue of the
+`write_reprojection_overlays` is this pipeline's analogue of the
 reference's show_reprojection_error renderer
 (examples/spherical_sfm_tools.cpp:957-1005): every observation is drawn on
 its frame at the observed pixel, colored yellow→red by the magnitude of its

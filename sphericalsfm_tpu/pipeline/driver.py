@@ -171,7 +171,7 @@ def run_frontend(
     fr = FrontendResult(feats, pair_i, pair_j, idx0, idx1, mmask)
     if cache_path:
         log.start("save_frontend_cache")
-        # TPU-detector descriptors persist SIFT-quantized (uint8 ×512 —
+        # Device-detector descriptors persist SIFT-quantized (uint8 ×512 —
         # exactly the form they came off the device in, so the round-trip
         # is lossless). The OpenCV backend returns L2-normalized floats
         # that are NOT 1/512 multiples (and can exceed 255/512), so it

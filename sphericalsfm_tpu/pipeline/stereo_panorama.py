@@ -10,8 +10,8 @@ rays fall between the two cameras — plane-induced homography maps corrected
 by dense optical flow, alpha-blended — and finally the cylindrical→spherical
 remap and over/under stereo export.
 
-TPU redesign: the reference synthesizes one column at a time on the host with
-CUDA flow; here all columns assigned to a pair are synthesized as one batched
+Device redesign: the reference synthesizes one column at a time on the host
+with CUDA flow; here all columns assigned to a pair are synthesized as one batched
 gather/lerp kernel, the flow is the jitted pyramidal Horn–Schunck solver
 (ops/optical_flow.py), and the column→pair assignment is vectorized host
 numpy (pure trigonometry).
@@ -31,6 +31,7 @@ from ..geometry.so3 import np_so3_exp, so3_exp, so3_log
 from ..ops.optical_flow import horn_schunck_flow
 from ..ransac.plane import plane_ransac
 from ..io.nerf import read_poses
+from ..io.png import write_png
 
 DEPTH = 10.0               # plane depth (stereo_panorama_tools.cpp:30)
 SYNTH_RADIUS = 0.5         # synthetic view circle radius (:31)
@@ -356,17 +357,14 @@ def make_stereo_panoramas(
 
     sphericals = []
     for p in range(nphi):
-        import imageio.v2 as iio
-
-        iio.imwrite(os.path.join(output_dir, f"cylindrical{p}.png"), panos[p])
+        write_png(os.path.join(output_dir, f"cylindrical{p}.png"), panos[p])
         sph = cylindrical_to_spherical(panos[p], focal, cy)
         sphericals.append(sph)
-        iio.imwrite(os.path.join(output_dir, f"spherical{p}.png"), sph)
+        write_png(os.path.join(output_dir, f"spherical{p}.png"), sph)
     for p in range(nphi // 2):
         over = np.concatenate([sphericals[nphi - p - 1], sphericals[p]], axis=0)
-        import imageio.v2 as iio
-
-        iio.imwrite(os.path.join(output_dir, f"overunder{nphi - p - 1}{p}.png"), over)
+        write_png(os.path.join(output_dir, f"overunder{nphi - p - 1}{p}.png"),
+                  over)
     return sphericals
 
 
@@ -447,7 +445,6 @@ def make_circle_views(
     view_fn = jax.jit(synthesize_view, static_argnums=(3, 4))
 
     thetas = -np.pi + np.arange(num_views) * (2 * np.pi / num_views)
-    import imageio.v2 as iio
 
     written = 0
     for vi, theta in enumerate(thetas):
@@ -489,6 +486,6 @@ def make_circle_views(
         )
         out = np.clip(np.asarray(img), 0, 255).astype(np.uint8)
         out[~np.asarray(valid)] = 0
-        iio.imwrite(os.path.join(output_dir, f"view{vi:04d}.png"), out)
+        write_png(os.path.join(output_dir, f"view{vi:04d}.png"), out)
         written += 1
     return written

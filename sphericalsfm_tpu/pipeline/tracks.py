@@ -10,7 +10,7 @@ Capability parity with the reference's
 These are tiny pointer-chasing jobs (thousands of nodes), deliberately kept
 on the host: a union-find in C (native/graph.cpp, loaded via ctypes, with
 this numpy fallback) feeds the static-shape observation tables that the
-device kernels consume. No reason to burn MXU cycles on them.
+device kernels consume. No reason to spend device launches on them.
 """
 
 from __future__ import annotations

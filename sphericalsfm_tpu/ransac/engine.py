@@ -1,8 +1,8 @@
-"""Batched fixed-shape RANSAC engine — the TPU replacement for LO-RANSAC.
+"""Batched fixed-shape RANSAC engine — the device replacement for LO-RANSAC.
 
 The reference wraps a sequential, adaptively-terminated LO-MSAC
-(RansacLib, /root/reference/include/RansacLib/ransac.h:121-275). On TPU the
-idiomatic shape is *breadth-first*: generate M hypotheses at once (vmapped
+(RansacLib, /root/reference/include/RansacLib/ransac.h:121-275). On an
+accelerator the idiomatic shape is *breadth-first*: generate M hypotheses at once (vmapped
 minimal solver over PRNG-sampled index triples), score every hypothesis
 against every correspondence as one batched contraction (MSAC top-hat),
 argmin, then locally optimize the winner (non-minimal refits + damped

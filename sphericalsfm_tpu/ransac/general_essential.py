@@ -4,8 +4,8 @@ Capability parity with the reference's estimate_pairwise_five_point
 (/root/reference/examples/spherical_sfm_tools.cpp:433-573): LO-MSAC with the
 Stewenius-class 5-pt solver and COLMAP-style cheirality disambiguation,
 giving each image pair a general relative rotation for the uncalibrated
-pipeline's -fivepoint mode. CPU-backend path (the 5-pt eigendecomposition is
-not TPU-lowerable; the spherical 3-pt engine is the TPU production path).
+pipeline's -fivepoint mode. Off the main path: the spherical 3-pt engine is
+the production path.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ called). Here it becomes a live capability: `--sixpoint` lets the
 uncalibrated pipeline estimate the shared focal directly from strong pairs
 and skip the focal search sweep.
 
-Candidates come from the TPU-native focal-sweep 6-pt solver
+Candidates come from the eigensolver-free focal-sweep 6-pt solver
 (solvers/shared_focal.py); each (E, f) candidate is conjugated back to the
 nominal-focal ray frame and MSAC-scored with the Sampson error, exactly like
 the spherical engine. Fixed shapes throughout; vmap over pairs.

@@ -123,11 +123,10 @@ def _spherical_ransac_body(
     final_least_squares, lo_rounds, nonminimal_size, refine_iters,
 ) -> SphericalRansacResult:
     # The whole hypothesize-score-refine chain traces under HIGHEST matmul
-    # precision: the TPU MXU's default bf16 input rounding puts a ~4e-2 deg
-    # floor under the refined rotation (measured: static engine median
-    # error 0.053 deg at default vs 0.011 at HIGHEST on the 1 px bench
-    # sweep; the 3x3 contractions here are tiny, so the cost is ~3-7%
-    # throughput — scripts/bench_ransac_adaptive.py).
+    # precision: bf16 matmul-input rounding (the default on the chip this
+    # was first built for) put a ~4e-2 deg floor under the refined rotation
+    # on the 1 px bench sweep (scripts/bench_ransac_adaptive.py); the 3x3
+    # contractions here are tiny, so HIGHEST costs little.
     k_sample, k_lo = jax.random.split(key)
     triples = sample_tuples(k_sample, mask, num_hypotheses, 3)  # (M, 3)
     u3 = u[triples]  # (M, 3, 3)
@@ -219,12 +218,11 @@ def spherical_ransac_adaptive(
     samples like its min_sample_multiplicator) — together they close the
     accuracy gap the early exit opens against the static engine (the bound
     guarantees an all-inlier SAMPLE was drawn, not that the best-of-few
-    model is as sharp as a best-of-many). Measured on the 1 px / 256-corr
-    bench sweep (TPU v5e, scripts/bench_ransac_adaptive.py): static-512
-    0.0109° median at 1179 pairs/s; this default (min_rounds=2, lo=2)
-    0.0118° at 2338 pairs/s — within 8% of static accuracy at 2.0× its
-    speed (under 30% outliers: 0.0171° vs static 0.0170°, statistical
-    parity); min_rounds=1 trades to 0.0146° at 3.0×.
+    model is as sharp as a best-of-many). The defaults (min_rounds=2,
+    lo=2) were chosen on another chip with scripts/bench_ransac_adaptive.py
+    (1 px / 256-corr sweep): median error within 8% of the static 512-
+    hypothesis engine (statistical parity under 30% outliers). Their speed
+    trade-off waits for re-measurement on the GPU (ROADMAP 3.3).
     """
     with jax.default_matmul_precision("highest"):
         return _spherical_ransac_adaptive_body(

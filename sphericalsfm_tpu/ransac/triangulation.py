@@ -37,7 +37,7 @@ def triangulate_midpoint(
     ray of view v in world coordinates and Cᵥ its camera center — a 3×3
     normal system solved with the adjugate inverse. Pure elementwise
     arithmetic: unlike the DLT (4×4 eigendecomposition per hypothesis) this
-    costs nothing on TPU, so it is the minimal-sample hypothesis generator
+    is cheap on any device, so it is the minimal-sample hypothesis generator
     inside the RANSAC loop; the DLT refit + LM polish still produce the
     final estimate. Near-parallel rays yield a near-singular system whose
     garbage candidate is rejected by MSAC scoring (the engine's fixed-shape

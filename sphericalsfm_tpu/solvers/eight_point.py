@@ -7,7 +7,7 @@ center/scale the image coordinates, stack the N×9 epipolar system, take the
 smallest right singular direction, de-normalize, and project onto the
 essential manifold (singular values → (s, s, 0)).
 
-Batched, jittable, TPU-capable (9×9 eigh + 3×3 svd only).
+Batched, jittable, no general eigensolver (9×9 eigh + 3×3 svd only).
 """
 
 from __future__ import annotations

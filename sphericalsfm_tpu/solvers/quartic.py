@@ -3,7 +3,7 @@
 Solves a x⁴ + b x³ + c x² + d x + e = 0 via Ferrari's reduction to a
 depressed cubic — the same closed-form path the reference uses
 (spherical_solvers.cpp:15-98, itself from the Theia library) — but vectorized
-over a batch axis and implemented on (re, im) float pairs so it runs on TPU
+over a batch axis and implemented on (re, im) float pairs so it runs
 without relying on complex-dtype support in every backend.
 
 Always returns 4 roots as (re, im) arrays; callers keep real parts (the

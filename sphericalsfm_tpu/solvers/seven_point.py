@@ -13,7 +13,7 @@ epipolar constraint matrix; det(F₁ + λF₂) is a cubic in λ whose
 coefficients are recovered from determinant evaluations at 4 integer nodes
 through a fixed 4×4 Vandermonde inverse; real roots come from Cardano in
 the same hand-rolled (re, im) arithmetic the quartic solver uses — fully
-batched, static shapes, TPU-compatible (3×3 eigh/svd only).
+batched, static shapes, no general eigensolver (3×3 eigh/svd only).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Gröbner-basis `relpose_6pt_shared_focal` (built but not called by any driver
 — an available capability). Same API role: 6 pixel correspondences with an
 unknown shared focal length → candidate (E, f) pairs.
 
-Different (TPU-native) derivation: with 6 epipolar constraints the
+Different (eigensolver-free) derivation: with 6 epipolar constraints the
 fundamental matrix has a 3-dim nullspace F(x, y) = x·F₁ + y·F₂ + F₃. For a
 *fixed* focal f (K² = diag(f², f², 1)) the essentiality of E = K F K is
 equivalent to 2·F K² Fᵀ K² F − tr(K² F K² Fᵀ)·F = 0 plus det F = 0 — ten
@@ -16,7 +16,7 @@ quartic. The true focal values are where this per-focal system becomes
 consistent, so the solver sweeps a log-spaced focal grid (one extra vmap
 axis), scores each candidate by its Demazure residual, polishes the focal by
 a golden-section step, and returns the best candidates. Fully batched and
-jittable on TPU (no general eigensolver).
+jittable on any backend (no general eigensolver).
 """
 
 from __future__ import annotations
@@ -167,8 +167,9 @@ def solve_shared_focal_6pt(
     dtype = u.dtype
     # Trace the WHOLE solver under HIGHEST matmul precision: the eigh/svd/
     # cholesky/triangular-solve internals below run default-precision
-    # matmuls otherwise, and the TPU MXU default rounds f32 inputs to bf16 —
-    # measured 38% median focal error on-chip vs 6% at f32 (the per-einsum
+    # matmuls otherwise, and a backend's default may round f32 inputs
+    # (bf16 on the chip this was first built for, TF32 on the GPU) — with
+    # bf16 inputs the median focal error went from 6% to 38% (the per-einsum
     # precision=_HI tags cover only the explicit contractions).
     with jax.default_matmul_precision("highest"):
         return _solve_shared_focal_6pt_body(

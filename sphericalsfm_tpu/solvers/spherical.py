@@ -2,10 +2,10 @@
 
 Capability parity with the reference's two 3-pt minimal solvers
 (spherical_solver_action_matrix / spherical_solver_polynomial,
-/root/reference/src/spherical_solvers.cpp:102-660), but a different — and
-TPU-native — derivation. The reference carries ~500 lines of symbolically
-generated coefficient code (Matlab codegen) and, for the action-matrix
-variant, a 4x4 nonsymmetric eigendecomposition that is unavailable on TPU.
+/root/reference/src/spherical_solvers.cpp:102-660), but a different —
+batched, eigensolver-free — derivation. The reference carries ~500 lines of
+symbolically generated coefficient code (Matlab codegen) and, for the
+action-matrix variant, a 4x4 nonsymmetric eigendecomposition.
 We instead build the polynomial system *numerically*:
 
 1. A spherical essential matrix has the structure
@@ -21,7 +21,7 @@ We instead build the polynomial system *numerically*:
 3. Instead of symbolic expansion, C is recovered by polynomial interpolation:
    evaluate the ten constraints at 10 fixed sample points (x_i, y_i) and
    multiply by a precomputed inverse Vandermonde. This is one (10,10)x(10,10)
-   matmul per hypothesis — MXU-friendly and trivially vmappable.
+   matmul per hypothesis — trivially vmappable.
 4. Least-squares elimination G = (C₁ᵀC₁)⁻¹ C₁ᵀ C₂ (monomial order
    [x³, x²y, xy², x², xy, x | y³, y², y, 1]) expresses x-monomials in
    y-monomials; rows for `x` and `xy` combine into a quartic in y, solved in
@@ -98,8 +98,9 @@ def _nullspace3(A: jnp.ndarray) -> jnp.ndarray:
     singular direction — putting it in the constant column keeps the solution
     near (x, y) = (0, 0) instead of at infinity.
 
-    All contractions use Precision.HIGHEST: on TPU the MXU default would
-    compute these in reduced precision, which is fatal for the elimination.
+    All contractions use Precision.HIGHEST: a backend's default matmul
+    precision may be reduced (TF32 on the GPU), which is fatal for the
+    elimination.
 
     Minimal samples (N = 3) take the exact orthogonal-complement path —
     Gram-Schmidt basis completion, no eigensolver at all (the hot RANSAC
@@ -116,8 +117,8 @@ def _nullspace3(A: jnp.ndarray) -> jnp.ndarray:
 
 
 def _spd_solve(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
-    """Cholesky solve of an SPD system (TPU supports Cholesky in f32/f64;
-    LU-based jnp.linalg.solve does not exist for f64 on TPU)."""
+    """Cholesky solve of an SPD system (the normal equations here are SPD,
+    so no pivoted LU is needed)."""
     L = jnp.linalg.cholesky(A)
     y = jax.scipy.linalg.solve_triangular(L, B, lower=True)
     return jax.scipy.linalg.solve_triangular(

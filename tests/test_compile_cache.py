@@ -1,8 +1,12 @@
-"""Compile-shape bucketing: captures of different length must REUSE the
-compiled BA and pose-graph programs (the LM while_loops cost ~30-70 s of
-XLA compile per distinct shape on the TPU backend — SfMMap.optimize and
-the pose-graph entry points bucket every traced axis to prevent one fresh
-compile per video)."""
+"""Compile caching: captures of different length must REUSE the compiled BA
+and pose-graph programs (SfMMap.optimize and the pose-graph entry points
+bucket every traced axis to prevent one fresh compile per video), and the
+persistent cache goes where JAX_COMPILATION_CACHE_DIR says, else to one
+fixed path in the checkout."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 
@@ -91,3 +95,41 @@ def test_pose_graph_shapes_bucketed_across_sizes():
     assert n2 - n1 == 0, "same-bucket graph sizes must not retrace"
     assert rots1.shape == (41, 3) and rots2.shape == (44, 3)
     assert float(c1) < 1e-3 and float(c2) < 1e-3
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cache_dir_in_fresh_process(**env):
+    """jax_compilation_cache_dir as a fresh interpreter sees it after
+    importing the package under `env` (no backend is initialized)."""
+    full = {k: v for k, v in os.environ.items()
+            if k not in ("JAX_COMPILATION_CACHE_DIR", "JAX_PLATFORMS",
+                         "SPHERICALSFM_TPU_NO_COMPILE_CACHE")}
+    full.update(env, PYTHONPATH=REPO)
+    code = ("import jax, sphericalsfm_tpu; "
+            "print(jax.config.jax_compilation_cache_dir)")
+    out = subprocess.run([sys.executable, "-c", code], env=full, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip().splitlines()[-1]
+
+
+def test_compile_cache_honours_env_var(tmp_path):
+    import sphericalsfm_tpu as pkg
+
+    assert pkg._compile_cache_dir(
+        {"JAX_COMPILATION_CACHE_DIR": str(tmp_path)}) is None
+    assert _cache_dir_in_fresh_process(
+        JAX_COMPILATION_CACHE_DIR=str(tmp_path)) == str(tmp_path)
+
+
+def test_compile_cache_defaults_to_checkout_path():
+    import sphericalsfm_tpu as pkg
+
+    fixed = os.path.join(REPO, ".jax_cache")
+    assert pkg._compile_cache_dir({}) == fixed
+    assert pkg._compile_cache_dir({"JAX_PLATFORMS": "cpu"}) is None
+    assert pkg._compile_cache_dir(
+        {"SPHERICALSFM_TPU_NO_COMPILE_CACHE": "1"}) is None
+    assert _cache_dir_in_fresh_process(JAX_PLATFORMS="") == fixed

@@ -4,8 +4,8 @@ bespoke script. Stage-level exactness vs the single-device path, plus the
 full calibrated and uncalibrated drivers on the 8-way virtual mesh.
 
 The reference has no distributed equivalent (single-process OpenMP,
-spherical_sfm_tools.cpp:299,332,588); this is the TPU-native capability the
-survey's north star defines.
+spherical_sfm_tools.cpp:299,332,588); this is the multi-device capability
+the survey's north star defines.
 """
 
 import numpy as np

@@ -86,7 +86,7 @@ def test_general_essential_ransac():
 
 
 def test_5pt_qr_method_matches_eig():
-    """The TPU-capable QR/Newton eigensolver path (VERDICT item 8) recovers
+    """The backend-independent QR/Newton eigensolver path recovers
     the same essential matrices as the LAPACK eig path: every eig-path
     best-candidate is matched by a qr-path candidate to 1e-6."""
     u, v, E_gt, R, t, good = _general_problems(3, 48, 5)
@@ -127,7 +127,7 @@ def test_5pt_qr_method_ransac_accuracy():
 
 
 def test_eig_real_batched_random_matrices():
-    """The TPU-capable eigensolver finds every real eigenvalue of random
+    """The backend-independent eigensolver finds every real eigenvalue of random
     nonsymmetric matrices with no false positives, vectors at machine eps."""
     from sphericalsfm_tpu.ops.linalg import eig_real_batched
 

@@ -3,6 +3,7 @@
 import json
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
@@ -114,3 +115,40 @@ def test_experiment_runners(tmp_path):
     assert r["median_rot_deg"] < 0.5
     for f in ("noise.csv", "stab.csv", "time.csv", "ransac.csv"):
         assert (tmp_path / f).exists()
+
+
+def _decode_png(path):
+    """Independent decoder for what write_png emits: chunk CRCs, IHDR,
+    zlib-inflated scanlines with filter type 0."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
+                                                        chunks[b"IHDR"])
+    assert depth == 8 and interlace == 0 and b"IEND" in chunks
+    c = {0: 1, 2: 3, 6: 4}[ctype]
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + w * c)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, c)
+
+
+@pytest.mark.parametrize("shape", [(7, 5), (6, 9, 3), (4, 3, 4)])
+def test_png_round_trip(tmp_path, shape):
+    from sphericalsfm_tpu.io.png import write_png
+
+    img = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    path = str(tmp_path / "x.png")
+    write_png(path, img)
+    got = _decode_png(path)
+    np.testing.assert_array_equal(got.reshape(img.shape), img)

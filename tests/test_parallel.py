@@ -168,7 +168,7 @@ def test_ring_matching_equals_dense():
     dj = jnp.asarray(desc)
     vj = jnp.asarray(valid)
     i0_ref, i1_ref, mk_ref = match_pairs_compact_batched(
-        dj[pi], dj[pj], vj[pi], vj[pj], K, use_pallas=False
+        dj[pi], dj[pj], vj[pi], vj[pj], K, use_kernel=False
     )
     np.testing.assert_array_equal(mk, np.asarray(mk_ref))
     np.testing.assert_array_equal(i0[mk], np.asarray(i0_ref)[np.asarray(mk_ref)])
@@ -197,7 +197,7 @@ def test_ring_matching_compact_scale():
     vj = jnp.asarray(valid)
     i0_ref, i1_ref, mk_ref = match_pairs_compact_batched(
         dj[pi[sel]], dj[pj[sel]], vj[pi[sel]], vj[pj[sel]], M,
-        use_pallas=False,
+        use_kernel=False,
     )
     np.testing.assert_array_equal(mk[sel], np.asarray(mk_ref))
     np.testing.assert_array_equal(i0[sel][mk[sel]],
@@ -248,3 +248,33 @@ def test_sharded_retriangulate_matches_single_device():
     assert ok.sum() > P // 2  # most tracks triangulate
     err = np.linalg.norm(np.asarray(res_sh.X)[ok] - pts[ok], axis=-1)
     assert np.median(err) < 0.1
+
+
+def test_sharded_match_chunk_runs_the_kernel_under_shard_map(monkeypatch):
+    """The mesh match path with the matcher kernel (as on several GPUs; here
+    in Pallas interpret mode) equals the single-device plain path."""
+    from sphericalsfm_tpu.ops import matching, pallas_matching
+    from sphericalsfm_tpu.pipeline.frontend import _match_chunk_sharded
+
+    kernel = pallas_matching.two_nearest_neighbors_batched
+    monkeypatch.setattr(matching, "matcher_uses_kernel", lambda b: True)
+    monkeypatch.setattr(pallas_matching, "two_nearest_neighbors_batched",
+                        lambda *a, **k: kernel(*a, **{**k, "interpret": True}))
+    rng = np.random.default_rng(3)
+    F, K = 6, 136
+    desc = rng.random((F, K, 128)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    desc = np.round(desc * 512.0).astype(np.float32) / 512.0  # bf16-exact
+    valid = np.ones((F, K), bool)
+    valid[:, -3:] = False
+    a = np.array([0, 1, 2, 3, 0, 4, 1, 5], np.int32)
+    b = np.array([1, 2, 3, 4, 5, 5, 3, 0], np.int32)
+    mesh = make_mesh(4)
+    got = _match_chunk_sharded(mesh, jnp.asarray(desc), jnp.asarray(valid),
+                               jnp.asarray(a), jnp.asarray(b),
+                               max_matches=96, ratio=0.75)
+    dj, vj = jnp.asarray(desc), jnp.asarray(valid)
+    want = matching.match_pairs_compact_batched(
+        dj[a], dj[b], vj[a], vj[b], 96, ratio=0.75, use_kernel=False)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
